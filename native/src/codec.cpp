@@ -1,6 +1,6 @@
 // Serial encode/decode drivers: forward-graph optimal parse, greedy parse,
 // chunked frame emission, and the op-array LZ expansion used as phase 2 of
-// the TPU pipeline. Choice parity: NLZM.cpp:1458-1651 (parse),
+// the device pipeline. Choice parity: NLZM.cpp:1458-1651 (parse),
 // 1711-2039 (drivers); output bytes match the reference encoder's.
 #include <atomic>
 #include <cstdio>
@@ -647,7 +647,7 @@ static i64 decode_frames(const u8* src, i64 n, int hist_bits, u8* dst, i64 cap) 
   return w;
 }
 
-// ---- op-array LZ expansion (phase 2 of the TPU pipeline) ----
+// ---- op-array LZ expansion (phase 2 of the device pipeline) ----
 // op_len[t]==0 => literal with byte op_val[t]; else match (len, delta).
 // dict/dlen: optional shared dictionary as virtual history before byte 0
 // (distances may reach dlen bytes before the output start).
@@ -1165,7 +1165,7 @@ void nlzmx_classify_reps(const int* op_len, const int* op_val, long long T, long
 // inside a match command C at distance dC satisfies out[p] == out[p-dC],
 // so while a match's source span sits inside one earlier command, adding
 // that command's distance is an equally valid encoding whose ancestors
-// sit one command earlier. Bounded depth caps the TPU decoder's
+// sit one command earlier. Bounded depth caps the device decoder's
 // pointer-doubling rounds. op arrays are [T, B] row-major; threaded
 // across blocks.
 void nlzmx_lift_deep(int* op_len, int* op_val, long long T, long long B, int N, int cap,
@@ -1243,7 +1243,7 @@ long long nlzmx_parse_block_ops(const unsigned char* src, long long n, int hist_
 // A snapshot holds finder tables preloaded over the dictionary; each
 // block restores it by assignment (vector capacity reuse via a
 // thread-local working set) and parses with the dictionary as virtual
-// history at [0, dlen). The TPU-format analog of the reference's
+// history at [0, dlen). The device-format analog of the reference's
 // long-range machinery (RK256 + big windows, NLZM.cpp:788-811,1033-1123)
 // restructured for parallel blocks: reach is shared, decode stays
 // embarrassingly parallel.
@@ -1308,7 +1308,7 @@ void nlzmx_classify_reps_bm(const int* op_len, const int* op_val, long long T,
 // so every piece can keep lifting; pieces that cannot reach the cap
 // (length below the lifted distance's match minimum) degrade to
 // literals read from the original bytes. Guarantees depth <= cap for
-// every block, making the TPU expander's doubling-round budget exact:
+// every block, making the device expander's doubling-round budget exact:
 // ceil(log2(cap)) rounds. Overlapping matches (l > d) collapse to
 // depth(period)+1 via the decoder's modular parents; their head period
 // is recursively bounded to cap-1 when needed.
@@ -1324,7 +1324,7 @@ void nlzmx_classify_reps_bm(const int* op_len, const int* op_val, long long T,
 // when that command is an overlap, within ONE period of it. Under this
 // invariant a whole command's ancestor map stays in the closed form
 // a + ((i - m) mod d) through every pointer-doubling composition, so
-// the TPU expander can double over ~0.2N commands instead of N
+// the device expander can double over ~0.2N commands instead of N
 // positions (nlzm_tpu/ops/expand_ops.py::lz_expand_cmd).
 int nlzmx_lift_split(const unsigned char* src, long long n, long long block_size,
                      int* op_len, int* op_val, long long t_cap, long long B,

@@ -4,7 +4,7 @@
 // nlzm_tpu/*.py docstrings; semantics parity cited against
 // /root/reference/NLZM.cpp throughout). This library is the framework's
 // host-side engine: serial encode (greedy/optimal parse), serial decode,
-// op-array LZ expansion for the TPU pipeline, CRC32, and a threaded
+// op-array LZ expansion for the device pipeline, CRC32, and a threaded
 // block-container codec.
 #pragma once
 

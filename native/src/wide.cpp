@@ -142,8 +142,7 @@ struct BlockSyms {
 
 // op_rep may be null: the wide rep rule (r-th most recent dict distance,
 // virtual initial history 1,2,3,4) is then evaluated inline - saves the
-// caller a [B, T] i32 array (first-touch page faults on this container
-// cost seconds at 32 MB scale).
+// caller a [B, T] i32 array (and its first-touch page faults).
 static void classify_block(const i32* op_len, const i32* op_val, const i32* op_rep,
                            i64 T, BlockSyms& out) {
   PlaneData& tok = out.planes[0];
@@ -386,8 +385,7 @@ extern "C" {
 
 // One-shot wide encode: parse -> lift-split -> plane encode, all inside
 // the library with per-thread scratch (the dense [B, 32k] op arrays the
-// staged API needs cost ~64 MB of first-touch page faults on this
-// container - seconds of wall clock on its slow fault path). Payloads
+// staged API needs cost ~64 MB of first-touch page faults). Payloads
 // land back-to-back in out; per-block sizes, depths and command counts
 // are reported. Returns 0, or 1 on out_cap overflow.
 // priors_in (optional, may be null): a serialized priors blob (u16be per

@@ -11,11 +11,13 @@ block-parallel profile:
 Flags:
     -window:bits    window size in bits (15..28, default 22)
     -parser:name    greedy | optimal (default optimal)
-    -blocks[:size]  use the NLZP block-parallel container (TPU decode path);
+    -blocks[:size]  use the NLZP block-parallel container (device engine path);
                     optional uncompressed block size in bytes
     -profile:name   block profile: v1 (NLZM-compatible frames, default)
-                    | wide (lane-parallel TPU-first planes)
-    -engine:name    engine: auto | serial | native | tpu
+                    | wide (lane-parallel device-first planes)
+    -engine:name    engine: auto | serial | native | device
+                    (auto decodes containers on the device engine only
+                    when JAX's backend is a GPU, else on native)
     -dict:size      wide profile: shared-dictionary bytes sampled from the
                     input (0 = off)
     -v              verbose: memory budget + per-stage timing report
@@ -41,9 +43,33 @@ def _usage() -> int:
     return 1
 
 
+def _use_device() -> None:
+    """Set up the device engine: compile cache, and say where it runs."""
+    import jax
+
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    print(f"Engine: device (jax backend {jax.default_backend()})")
+
+
+def _container_engine(engine: str) -> str:
+    """Resolve `auto` for NLZP containers: the device engine only on a
+    GPU backend; otherwise native (serial when the library is absent)."""
+    if engine != "auto":
+        return engine
+    import jax
+
+    if jax.default_backend() == "gpu":
+        return "device"
+    from . import native
+
+    return "native" if native.available() else "serial"
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    print("nlzm-tpu 0.1 - TPU-native NLZM-class codec")
+    print("nlzm-tpu 0.1 - NLZM-class codec with a JAX device engine")
 
     window_bits = DEFAULT_HIST_BITS
     parser = "optimal"
@@ -130,6 +156,8 @@ def main(argv=None) -> int:
             and engine in ("auto", "native")
             and native.available()
         )
+        if engine == "device":
+            _use_device()
         with m.stage("encode", flen):
             if stream_ok:
                 # bounded-memory streaming driver: RSS stays O(window)
@@ -139,7 +167,7 @@ def main(argv=None) -> int:
                 r = encode_file(src, dst, window_bits, parser=parser, progress=prog)
             elif block_size and (
                 profile != "wide"
-                or (native.available() and parser == "optimal" and engine != "tpu")
+                or (native.available() and parser == "optimal" and engine != "device")
             ):
                 # bucket-at-a-time container streaming: O(window + bucket)
                 # RSS at any file size (parallel/stream.py)
@@ -192,6 +220,10 @@ def main(argv=None) -> int:
             magic = f.read(4)
         flen = os.stat(src).st_size
         t0 = time.time()
+        if magic[:4] == MAGIC:
+            engine = _container_engine(engine)
+        if engine == "device":
+            _use_device()
         if (
             magic[:4] != MAGIC
             and engine in ("auto", "native")
@@ -204,15 +236,12 @@ def main(argv=None) -> int:
             r = decode_file(src, dst, progress=prog)
             prog.finish()
             n_in, n_out, crc = r["in"], r["out"], r["crc32"]
-        elif magic[:4] == MAGIC and engine in ("auto", "tpu", "native"):
+        elif magic[:4] == MAGIC and engine in ("device", "native"):
             # NLZP container: bucket-at-a-time streaming decode
             from .parallel.stream import decode_container_stream
 
             prog = ProgressLine(flen)
-            r = decode_container_stream(
-                src, dst, engine=("tpu" if engine == "auto" else engine),
-                progress=prog,
-            )
+            r = decode_container_stream(src, dst, engine=engine, progress=prog)
             prog.finish()
             n_in, n_out, crc = r["in"], r["out"], r["crc32"]
         else:
@@ -231,8 +260,7 @@ def _decode_any(data: bytes, engine: str) -> bytes:
     from .parallel.blocks import MAGIC, decode_container
 
     if data[:4] == MAGIC:
-        eng = "tpu" if engine == "auto" else engine
-        return decode_container(data, engine=eng)
+        return decode_container(data, engine=_container_engine(engine))
     from . import native
     from .codec import decode_bytes
 

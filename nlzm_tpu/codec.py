@@ -1,7 +1,7 @@
 """Serial host codec drivers for the NLZM-compatible single-stream format.
 
 This is the reference-model implementation: clear, exact, and used to
-validate both the native C++ runtime and the batched TPU kernels. The file
+validate both the native C++ runtime and the batched device kernels. The file
 layout is:
 
     u16be hist_bits | u16be frame_bits | frame* | 4-byte zero sentinel

@@ -3,7 +3,7 @@
 These mirror the wire-format semantics of the reference compressor
 (/root/reference/NLZM.cpp:97-99, 212-217, 440-442, 733-737) so that archives
 produced by this framework round-trip bit-exactly and cross-decode with the
-reference. Everything else about this framework (batched TPU kernels, block
+reference. Everything else about this framework (batched device kernels, block
 sharding, native runtime) is new design.
 """
 

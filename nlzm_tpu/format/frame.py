@@ -10,7 +10,7 @@ num_ops counts every coded item (each CDF symbol and each direct-bit write);
 num_bits_bytes spans the header plus the bit section. A frame whose num_ops
 is 0 is the end-of-stream sentinel (only its first 4 bytes exist).
 
-This module is the host/serial implementation; the batched TPU decoder
+This module is the host/serial implementation; the batched device decoder
 consumes the same sections via nlzm_tpu.ops.decode_v2.
 """
 

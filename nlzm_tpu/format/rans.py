@@ -3,7 +3,7 @@
 State invariant: x in [2^16, freq * 2^18) after each encode step; the decoder
 needs no division. Renormalization moves 16 bits at a time; the byte pair is
 stored high-byte-first. Four lanes are interleaved round-robin per frame so a
-decoder can keep four states in flight (and the batched TPU decoder keeps
+decoder can keep four states in flight (and the batched device decoder keeps
 4 * num_blocks states in flight; see nlzm_tpu.ops.rans_ops).
 
 Wire parity: NLZM.cpp:440-488, 599-608.

@@ -5,7 +5,7 @@ Two parsers share the same chunk/frame plumbing and model:
 - "optimal": forward-graph parse over the full matcher suite
   (choice-parity with the reference: archives are byte-identical).
 - "greedy": single-probe hash-4 chain, much faster, bigger output; used for
-  quick stream generation and as the shape-model for the TPU encoder.
+  quick stream generation and as the shape-model for the device encoder.
 
 Driver parity: NLZM.cpp:1711-1910.
 """

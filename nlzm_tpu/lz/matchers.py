@@ -2,7 +2,7 @@
 
 These are the host/serial finders with wire-identical *choice* semantics to
 the reference (so our optimal-parse archives are byte-identical to its
-output). The batched TPU finders live in nlzm_tpu.ops.match_ops and may find
+output). The batched device finders live in nlzm_tpu.ops.match_ops and may find
 different (equal-or-better) candidate sets.
 
 Parity notes (NLZM.cpp:766-1123):

@@ -4,10 +4,10 @@ A CDF over N symbols (N in {2, 4, 8, 16}) is stored as N+1 cumulative
 16-bit fences in [0, 16384]; fence 0 is pinned to 0 and fence N to 16384.
 Adaptation nudges every interior fence 1/128th of the way toward a
 per-symbol target row ("mixin"), which is branch-free and maps directly
-onto VPU int16 lanes in the batched TPU kernels (nlzm_tpu.ops.cdf_ops).
+onto int16 vector lanes in the batched device kernels (nlzm_tpu.ops.cdf_ops).
 
 Wire-format parity: NLZM.cpp:212-438 (constants, mixin construction,
-update/lookup/cost semantics). The batched TPU layout is original.
+update/lookup/cost semantics). The batched device layout is original.
 """
 
 from functools import lru_cache

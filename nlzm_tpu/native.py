@@ -2,7 +2,7 @@
 
 The native library is the framework's C++ engine: serial optimal/greedy
 encode, serial decode, threaded block-container codec, op-array LZ
-expansion (phase 2 of the TPU pipeline), and CRC32. It is built with
+expansion (phase 2 of the device pipeline), and CRC32. It is built with
 `make -C native`; this module auto-builds it on first use if the toolchain
 is available.
 """
@@ -374,7 +374,7 @@ def lift_split(
     """Hard-cap literal-ancestor depth by lifting AND splitting matches.
 
     Unlike lift_deep, the returned per-block depth is guaranteed <= cap,
-    so the TPU expander's doubling-round budget is exactly
+    so the device expander's doubling-round budget is exactly
     ceil(log2(cap)). Command counts can grow (splits); returns new
     ([T', B] op_len, op_val, depths).
     """
@@ -417,7 +417,7 @@ def wide_encode_pipeline(data: bytes, block_size: int, hist_bits: int,
     """Full native wide-profile encode: parse -> lift(-split) ->
     rep-classify -> plane encode, one library call with per-thread
     scratch (staged [B, T] op arrays cost ~64 MB of first-touch page
-    faults on this container - seconds of wall clock).
+    faults).
 
     priors_in: encode against this serialized priors blob instead of
     building one from these blocks (the streaming driver shares bucket

@@ -1,8 +1,8 @@
-"""Batched CDF bank for the TPU engine.
+"""Batched CDF bank for the device engine.
 
 All 72 adaptive CDF contexts of the LZ model live in one [B, 72, 17] int32
 tensor ("the bank"); every context is padded to 17 fences with pad fences
-pinned at full scale, so lookup and update are uniform 17-wide VPU vector
+pinned at full scale, so lookup and update are uniform 17-wide vector
 ops with no per-size branching:
 
     lookup:  y = sum(f >= cells[1:17])            (pads never count)
@@ -11,7 +11,7 @@ ops with no per-size branching:
 The mixin tensor is indexed by [size_class, symbol] where size_class is
 log2(num_syms) - 2 (4/8/16-symbol CDFs; the 4-symbol command CDF is class 0).
 
-This is the VPU-lane generalization of the reference's SSE path
+This is the vector-lane generalization of the reference's SSE path
 (NLZM.cpp:360-376, 396-424); the layout/batching is original.
 """
 

@@ -1,4 +1,4 @@
-"""Batched TPU entropy decoder, v2: one LZ command per scan step, zero scatters.
+"""Batched device entropy decoder, v2: one LZ command per scan step, zero scatters.
 
 Differences from the v1 FSM kernel (decode_ops.py):
 
@@ -6,19 +6,16 @@ Differences from the v1 FSM kernel (decode_ops.py):
   raw-bit fields advance together, so scan overhead and emission amortize
   over ~3x more coded items.
 - Model state lives in per-family tensors updated with masked dense math
-  and one-hot FMAs - there is no scatter anywhere in the step (XLA TPU
-  scatters serialize per index and dominated v1's runtime).
+  and one-hot FMAs - there is no scatter anywhere in the step (scatters
+  dominated v1's runtime).
 - Commands are emitted as scan outputs (ys), aligned one-per-step, so
-  phase 2 (LZ expansion on TPU, or the native host runtime) consumes them
+  phase 2 (LZ expansion on device, or the native host runtime) consumes them
   directly with no compaction.
 - The two distance extra-bit fields are read as one combined bit fetch
   (identical bit layout; valid while add_bits <= 24, i.e. window < 2^27).
-- **Block-minor layout** (round 5): every model tensor keeps the block
-  axis LAST ([..., 17, B] instead of [B, ..., 17]), so the 128-lane VPU
-  vregs run across blocks instead of across the 17 CDF fences. With
-  B ~ 245 blocks the old layout used 17 of 128 lanes per vreg on every
-  family op (~5x vreg waste - BASELINE.md round-4 analysis); this
-  transpose is the measured fix for the per-command compute bound.
+- **Block-minor layout**: every model tensor keeps the block axis LAST
+  ([..., 17, B] instead of [B, ..., 17]), so the minor (vectorized)
+  dimension runs across blocks instead of across the 17 CDF fences.
 
 Semantics parity: NLZM.cpp:1967-2012 (command loop), 666-731 (frame reads).
 """

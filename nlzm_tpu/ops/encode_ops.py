@@ -1,4 +1,4 @@
-"""Batched TPU encoder: block-parallel greedy LZ + model emission + rANS.
+"""Batched device encoder: block-parallel greedy LZ + model emission + rANS.
 
 Pipeline (all [B]-batched; B independent blocks encode in lockstep):
 
@@ -19,7 +19,7 @@ Pipeline (all [B]-batched; B independent blocks encode in lockstep):
 
 The host then wraps per-block sections into standard NLZM frames (one frame
 per block; block_size <= frame chunk capacity), so archives decode with the
-serial/native/TPU decoders and the reference binary's wire format.
+serial/native/device decoders and the reference binary's wire format.
 
 Between E2 and E3 a `repify` pass replays the decoder's rep-distance table
 over the command stream and converts matches whose distance is live in the
@@ -869,10 +869,10 @@ def parse_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: st
     return op_len_h, op_val_h, np.asarray(op_rep), depths
 
 
-def encode_blocks_tpu(
+def encode_blocks_device(
     data: bytes, block_size: int, hist_bits: int, mesh=None, parser: str = "greedy"
 ):
-    """Encode blocks on the TPU; returns (payloads, reads, cmds) like
+    """Encode blocks on the device; returns (payloads, reads, cmds) like
     native.encode_blocks. Each block is one NLZM frame. With a mesh, blocks
     shard data-parallel over its device axis."""
     from ..constants import chunk_size_for, frame_bits_for
@@ -880,7 +880,7 @@ def encode_blocks_tpu(
     limit = chunk_size_for(frame_bits_for(hist_bits))
     if block_size > limit:
         raise ValueError(
-            f"engine=tpu v1 blocks encode as one frame each: block_size "
+            f"engine=device v1 blocks encode as one frame each: block_size "
             f"{block_size} exceeds the frame chunk capacity {limit} at "
             f"hist_bits {hist_bits} (use -blocks:{limit} or less, or the "
             f"native engine)"

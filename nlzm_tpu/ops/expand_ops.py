@@ -10,10 +10,8 @@ fills the output. This replaces both the reference's byte-serial copy loop
 
 Two formulations of the per-round composition p <- p o p:
 
-- packed path (block_size <= PACK_MAX = 32768): TPU has no per-lane gather
-  hardware, but its sorts run ~15-25x faster per element than XLA's gather
-  lowering (measured on v5e: unstable sort ~2G elem/s vs gather ~70M
-  elem/s). A gather by arbitrary index is restructured as: merge
+- packed path (block_size <= PACK_MAX = 32768): every gather by
+  arbitrary index is restructured as sorts (ops/sort_gather.py): merge
   (source, query) records keyed by position into one packed i32 sort,
   forward-fill the latest source payload with a cummax (packed keys are
   monotone in position), and route results back to query order with a
@@ -21,7 +19,7 @@ Two formulations of the per-round composition p <- p o p:
   into a scatter + cummax fill.
 - 2-operand path (big blocks, up to 128 KiB): same structure with
   (key, payload[, aux]) multi-operand sorts and associative take-latest
-  fills - no position/payload bit budget, ~1.8x the per-element cost.
+  fills - no position/payload bit budget, at a higher per-element cost.
 
 Inputs are the step-aligned command arrays from fsm_decode_v2.
 """

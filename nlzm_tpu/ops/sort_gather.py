@@ -1,15 +1,16 @@
 """Gather-via-sort primitives.
 
-TPU has no per-lane gather hardware; XLA lowers gather to ~70M elem/s
-(measured, v5e) while its sorts run ~1.2G elem/s. These helpers
-restructure batched gathers/compactions as packed single-i32 sorts:
+These helpers restructure batched gathers/compactions as packed
+single-i32 sorts, for backends where XLA's gather lowering is much
+slower per element than its sort (whether that holds on a given device
+is a measured question; the decode path uses these everywhere):
 
 - gather_sorted:  out[b, k] = src[b, idx[b, k]]   (2 sorts + cummax fill)
 - gather_sorted16: same with 16-bit payloads via u32 keys
 - compact_by_rank: out[b, r] = val[b, k] where rank[b, k] == r (1 sort)
 
 All packed keys are unique (payload/iota fields disambiguate records),
-so every sort runs is_stable=False - measured ~1.9x faster on TPU.
+so every sort runs is_stable=False (an unstable sort does less work).
 
 Packing budget: position bits PB + tag bit + payload bits PB must stay
 below 31, so PB=15 supports arrays up to 32768 wide with 15-bit payloads.

@@ -1,6 +1,6 @@
 """Device (jit) wide-profile plane encoder.
 
-Port of format/wide.py::_rans_encode_plane to the TPU: the forward pass
+Port of format/wide.py::_rans_encode_plane to the device: the forward pass
 simulates the decoder's chunk-adaptive tables against KNOWN symbols
 (same deterministic rebuild as ops/wide_decode.plane_scan, so encoder
 and decoder tables agree by construction), recording each symbol's
@@ -35,9 +35,7 @@ def plane_encode(syms, rows, n_sym, plane_idx: int, steps: int, prior=None):
 
     syms/rows: per read r, [B, steps*L] i32 symbol / context-row arrays;
     rows[r] may be None for single-row reads (no context; avoids
-    shipping a same-shaped all-zero array to the device - at container
-    scale those dead transfers dominated the relay cost of the
-    device-resident encode path).
+    shipping a same-shaped all-zero array to the device).
     n_sym: [B] symbol counts. prior: optional per-read [rows, 16] counts.
     Returns (seeds [B, L] u32 final lane states, pairs [B, steps*R*L]
     i32 renorm pair values in decode order, flags [B, steps*R*L] bool
@@ -46,7 +44,7 @@ def plane_encode(syms, rows, n_sym, plane_idx: int, steps: int, prior=None):
     spec = PLANES[plane_idx]
     L, R = spec.lanes, spec.reads
     # symbols may arrive as uint8 (every plane alphabet fits a byte):
-    # the staging path ships 1/4 the bytes over the relay and casts here
+    # the staging path ships 1/4 of the i32 bytes and casts here
     syms = tuple(s.astype(_I32) for s in syms)
     B = syms[0].shape[0]
     f32 = jnp.float32
@@ -220,11 +218,10 @@ def encode_planes_device(batched, priors=None):
     return plane_streams, plane_offsets
 
 
-def encode_pipeline_tpu(data: bytes, block_size: int, hist_bits: int = 15):
+def encode_pipeline_device(data: bytes, block_size: int, hist_bits: int = 15):
     """Timed device-encode pipeline for the bench: native forward-graph
     parse (host), vectorized plane batching + H2D staging, and a closure
-    running the five on-chip plane encodes with completion forced by a
-    scalar checksum fetch.
+    running the five on-chip plane encodes, ending in block_until_ready.
 
     Returns (run, parse_s, stage_fn, staging_first_s). The e2e rate the
     bench reports is parse_s + best_of(stage_fn) + best_of(run) -
@@ -249,9 +246,9 @@ def encode_pipeline_tpu(data: bytes, block_size: int, hist_bits: int = 15):
 
     def stage():
         """Host plane batching + H2D staging. First call pays numpy
-        first-touch page faults (~0.5 ms/4K on this one-core host);
-        steady-state calls reuse freed arenas - the bench reports both,
-        mirroring the decode side's staging_ms / staging_first_ms."""
+        first-touch page faults; steady-state calls reuse freed arenas -
+        the bench reports both, mirroring the decode side's staging_ms /
+        staging_first_ms."""
         staged.clear()
         _pb, batched, _pc = _wide.batch_plane_arrays(op_len, op_val, op_rep)
         priors = _wide.build_priors_from_batched(batched)
@@ -263,9 +260,8 @@ def encode_pipeline_tpu(data: bytes, block_size: int, hist_bits: int = 15):
                 for r in range(spec.reads)
             )
             staged.append((
-                # u8 upload: every plane symbol fits a byte; the H2D
-                # link through the relay was the staging wall (i32
-                # shipped ~4 bytes/symbol ~ 30 MB per 8 MB encoded)
+                # u8 upload: every plane symbol fits a byte (i32
+                # would ship ~4 bytes/symbol, ~30 MB per 8 MB encoded)
                 tuple(jnp.asarray(s.astype(np.uint8)) for s in syms_p),
                 tuple(
                     None if spec.rows[r] == 1 else jnp.asarray(rows_p[r], jnp.int32)
@@ -278,17 +274,14 @@ def encode_pipeline_tpu(data: bytes, block_size: int, hist_bits: int = 15):
     staging_first_s = time.time() - t0
 
     def run():
-        acc = jnp.zeros((), jnp.uint32)
-        for syms, rows, nsym, i, steps, prior in staged:
-            seeds, pa, ma = plane_encode(syms, rows, nsym, i, steps, prior)
-            acc = (acc + jnp.sum(seeds)
-                   + jnp.sum((pa * ma).astype(jnp.uint32)))
-        float(np.asarray(acc).astype(np.float64))
+        outs = [plane_encode(syms, rows, nsym, i, steps, prior)
+                for syms, rows, nsym, i, steps, prior in staged]
+        jax.block_until_ready(outs)
 
     return run, parse_s, stage, staging_first_s
 
 
-def encode_wide_blocks_tpu(op_len, op_val, op_rep, with_priors: bool = True):
+def encode_wide_blocks_device(op_len, op_val, op_rep, with_priors: bool = True):
     """Device twin of format.wide.encode_wide_blocks (byte-identical).
 
     Host: command classification + payload assembly; device: the five

@@ -1,10 +1,10 @@
 """NLZP block container: data-parallel profile of the NLZM format.
 
 The single-stream NLZM format decodes strictly serially (adaptive model +
-rANS state + LZ history all chain per symbol), so the TPU/multi-chip scaling
+rANS state + LZ history all chain per symbol), so the device/multi-chip scaling
 unit is the *block*: the input is split into fixed-size blocks, each encoded
 as an independent NLZM frame stream with a fresh model and window. Blocks
-decode in lockstep on the TPU (nlzm_tpu.ops.decode_v2) and shard
+decode in lockstep on the device (nlzm_tpu.ops.decode_v2) and shard
 data-parallel across a device mesh (nlzm_tpu.parallel.mesh).
 
 Container layout (all integers big-endian):
@@ -130,7 +130,7 @@ def encode_container(
     dict_size: int = 0,
     progress=None,
 ) -> bytes:
-    """Block encode. engine: auto (native if built) | native | serial | tpu.
+    """Block encode. engine: auto (native if built) | native | serial | device.
 
     depth_cap > 0 HARD-bounds every byte's literal-ancestor chain depth
     in wide blocks (lift + split at parse time), fixing the device
@@ -172,14 +172,14 @@ def encode_container(
         from ..format.wide import encode_wide_blocks
 
         if dictionary and not (
-            engine != "tpu" and native.available() and parser == "optimal"
+            engine != "device" and native.available() and parser == "optimal"
         ):
             raise ValueError(
                 "shared dictionaries need the native optimal-parse pipeline "
-                "(engine != 'tpu', parser='optimal', native library built)"
+                "(engine != 'device', parser='optimal', native library built)"
             )
         if num_blocks:
-            if engine != "tpu" and native.available() and parser == "optimal":
+            if engine != "device" and native.available() and parser == "optimal":
                 # full native block-major pipeline: forward-graph parse
                 # (full matcher suite, adaptive costs), depth lift,
                 # rep classification, threaded plane encode
@@ -193,12 +193,12 @@ def encode_container(
                 op_len, op_val, op_rep, depths = parse_blocks_device(
                     data, block_size, hist_bits, parser
                 )
-                if engine == "tpu":
+                if engine == "device":
                     # fully device-resident encode: device parse feeds the
                     # device plane encoder (byte-identical to the host's)
-                    from ..ops.wide_encode_dev import encode_wide_blocks_tpu
+                    from ..ops.wide_encode_dev import encode_wide_blocks_device
 
-                    payloads, priors_blob = encode_wide_blocks_tpu(
+                    payloads, priors_blob = encode_wide_blocks_device(
                         op_len, op_val, op_rep
                     )
                 else:
@@ -223,10 +223,10 @@ def encode_container(
             payloads, meta, priors_blob = [], [], b""
             dictionary = b""
             flags &= ~FLAG_DICT
-    elif engine == "tpu" and num_blocks:
-        from ..ops.encode_ops import encode_blocks_tpu
+    elif engine == "device" and num_blocks:
+        from ..ops.encode_ops import encode_blocks_device
 
-        payloads, reads, cmds = encode_blocks_tpu(data, block_size, hist_bits, parser=parser)
+        payloads, reads, cmds = encode_blocks_device(data, block_size, hist_bits, parser=parser)
         meta = list(zip(map(len, payloads), reads, cmds))
     elif use_native and num_blocks:
         from .. import native
@@ -335,15 +335,12 @@ def stage_v1_buckets(data: bytes, info: ContainerInfo, n_buckets: int = 0):
     """Bucket v1 blocks by command count before the FSM scan (adaptive).
 
     The scan's step count is static per batch, sized by the WORST block,
-    so one command-dense block makes every block pay its padding.
-    BUT the measured per-step cost is ~30% fixed + ~70% linear in the
-    batch width (t(step) = 9.2 us + 0.091 us x B on the bench chip), so
-    splitting a 245-block batch into two sequential buckets LOSES (10.1
-    vs 12.7 MB/s measured): each bucket keeps most of the per-step cost
-    while the step counts add. Bucketing only pays when B is large
-    enough that the fixed share is negligible; n_buckets=0 picks
-    1 bucket below 1024 blocks and 2 above. Returns [(streams [Bk, Sk]
-    jnp.uint8, num_steps, block_idx_list), ...].
+    so one command-dense block makes every block pay its padding. But a
+    step also has a fixed cost that does not shrink with the batch width,
+    and each sequential bucket pays it again for its own step count, so
+    bucketing only pays when B is large enough that the fixed share is
+    small; n_buckets=0 picks 1 bucket below 1024 blocks and 2 above.
+    Returns [(streams [Bk, Sk] jnp.uint8, num_steps, block_idx_list), ...].
     """
     import jax.numpy as jnp
 
@@ -419,10 +416,10 @@ def _verified(out: bytes, info: ContainerInfo) -> bytes:
     return out
 
 
-def decode_container(data: bytes, engine: str = "tpu") -> bytes:
+def decode_container(data: bytes, engine: str = "device") -> bytes:
     """Decode an NLZP container (CRC-verified when the container carries one).
 
-    engine="tpu": batched FSM decode + LZ expansion (jit; runs on whatever
+    engine="device": batched FSM decode + LZ expansion (jit; runs on whatever
     jax backend is active). engine="native": threaded C++ host runtime.
     engine="serial": per-block Python reference path.
     """

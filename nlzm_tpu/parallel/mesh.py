@@ -30,13 +30,24 @@ def _pad_blocks(arr: np.ndarray, multiple: int):
     return arr, b
 
 
-def decode_container_sharded(data: bytes, mesh: Mesh) -> bytes:
-    """Full block-parallel decode under a device mesh.
+def sharded_rows_to_bytes(rows, info, n_blocks: int) -> bytes:
+    """Block rows [B_pad, N] -> the container's plain bytes, CRC-verified."""
+    from .blocks import _verified
+
+    if not n_blocks:
+        return _verified(b"", info)
+    out_np = np.asarray(rows)[:n_blocks].reshape(-1)
+    return _verified(out_np.tobytes()[: info.total_len], info)
+
+
+def decode_container_sharded_rows(data: bytes, mesh: Mesh):
+    """v1 block decode under a device mesh -> (rows, info, n_blocks).
 
     Streams shard over the block axis; the FSM decode and LZ expansion run
     SPMD with zero cross-device traffic; per-block byte counts are
-    all-gathered (the ordered-gather collective) and the assembled output is
-    returned in stream order.
+    all-gathered (the ordered-gather collective). rows is the [B_pad, N]
+    u8 output, still sharded over the mesh; rows past n_blocks are padding
+    (rows is None for a container with no blocks).
     """
     from .blocks import pack_streams, parse_container
     from ..ops.decode_v2 import fsm_decode_v2
@@ -44,8 +55,7 @@ def decode_container_sharded(data: bytes, mesh: Mesh) -> bytes:
 
     info = parse_container(data)
     if not info.comp_sizes:
-        return b""
-
+        return None, info, 0
     n_dev = mesh.devices.size
     streams, n_blocks = _pad_blocks(pack_streams(data, info), n_dev)
 
@@ -63,46 +73,55 @@ def decode_container_sharded(data: bytes, mesh: Mesh) -> bytes:
         return out, sizes
 
     streams_dev = jax.device_put(jnp.asarray(streams), sharding)
-    out, sizes = pipeline(streams_dev)
-
-    out_np = np.asarray(out)[:n_blocks].reshape(-1)
-    return out_np.tobytes()[: info.total_len]
+    out, _sizes = pipeline(streams_dev)
+    return out, info, n_blocks
 
 
-def decode_wide_sharded(data: bytes, mesh: Mesh) -> bytes:
-    """Wide-profile block decode sharded over the mesh's block axis.
+def decode_container_sharded(data: bytes, mesh: Mesh) -> bytes:
+    """Full block-parallel v1 decode under a device mesh, in stream order
+    (CRC-verified when the container carries one)."""
+    return sharded_rows_to_bytes(*decode_container_sharded_rows(data, mesh))
+
+
+def decode_wide_sharded_rows(data: bytes, mesh: Mesh):
+    """Wide-profile block decode sharded over the mesh's block axis ->
+    (rows, info, n_blocks), rows as in decode_container_sharded_rows.
 
     Plane scans, assembly sorts, and expansion are all batched over the
     leading block dimension, so sharding the staged arrays makes the whole
-    pipeline SPMD with no cross-device traffic on the hot path.
+    pipeline SPMD with no cross-device traffic on the hot path. The shared
+    dictionary, when the container has one, is replicated on every device.
     """
     from .blocks import block_payloads, parse_container
-    from ..ops.wide_decode import decode_wide_staged, prepare_wide
+    from ..format.wide import empty_payload
+    from ..ops.wide_decode import decode_wide_staged, prepare_wide, rounds_hint_of
 
     info = parse_container(data)
-    if not info.comp_sizes:
-        return b""
     assert info.wide
+    if not info.comp_sizes:
+        return None, info, 0
 
     payloads = block_payloads(data, info)
     n_dev = mesh.devices.size
     # pad with zero-command blocks so B divides the mesh
     n_blocks = len(payloads)
-    from ..format.wide import empty_payload
-
-    pad_payload = empty_payload()
-    while len(payloads) % n_dev:
-        payloads.append(pad_payload)
+    payloads += [empty_payload()] * ((-n_blocks) % n_dev)
 
     staged = prepare_wide(payloads, info.wide_priors)
-    from ..ops.wide_decode import rounds_hint_of
-
     staged["rounds_hint"] = rounds_hint_of(max(info.total_reads, default=0))
     sharding = NamedSharding(mesh, P(BLOCK_AXIS))
     staged["n_sym"] = [jax.device_put(a, sharding) for a in staged["n_sym"]]
     for key in ("seeds_cat", "hw_cat", "offs", "ends", "bit_half"):
         staged[key] = jax.device_put(staged[key], sharding)
+    if info.dictionary:
+        staged["dict_arr"] = jax.device_put(
+            np.frombuffer(info.dictionary, np.uint8), NamedSharding(mesh, P()))
 
-    out, produced = decode_wide_staged(staged, info.block_size)
-    out_np = np.asarray(out)[:n_blocks].reshape(-1)
-    return out_np.tobytes()[: info.total_len]
+    out, _produced = decode_wide_staged(staged, info.block_size)
+    return out, info, n_blocks
+
+
+def decode_wide_sharded(data: bytes, mesh: Mesh) -> bytes:
+    """Wide-profile decode sharded over the mesh, in stream order
+    (CRC-verified when the container carries one)."""
+    return sharded_rows_to_bytes(*decode_wide_sharded_rows(data, mesh))

@@ -2,9 +2,8 @@
 
 The in-memory container path (`blocks.encode_container`/`decode_container`)
 holds the whole input, every payload, and the whole archive at once - fine
-for benches, fatal for enwik9-class files on this one-core host (~0.5 ms
-first-touch faults per 4K page). These drivers process the file in buckets
-of consecutive blocks (default 16 MiB of uncompressed data per bucket), so
+for benches, fatal for enwik9-class files. These drivers process the file
+in buckets of consecutive blocks (default 16 MiB of uncompressed data per bucket), so
 RSS stays O(dictionary + bucket) regardless of file size - the container
 analog of the reference's fixed-buffer overlapped refill
 (/root/reference/NLZM.cpp:1870-1885, 2014-2018).
@@ -83,10 +82,10 @@ def encode_container_stream(
     if profile == "wide":
         if block_size > WIDE_MAX_BLOCK:
             raise ValueError("wide profile caps blocks at 128 KiB")
-        if not (engine != "tpu" and native.available() and parser == "optimal"):
+        if not (engine != "device" and native.available() and parser == "optimal"):
             raise ValueError(
                 "streaming wide encode needs the native optimal-parse "
-                "pipeline (engine != 'tpu', parser='optimal', library built)"
+                "pipeline (engine != 'device', parser='optimal', library built)"
             )
 
     dictionary = b""
@@ -143,10 +142,10 @@ def encode_container_stream(
                 for k, p in enumerate(payloads):
                     meta[b0 + k] = (len(p), int(depths[k]), ncmds[k])
                     out.write(p)
-            elif engine == "tpu":
-                from ..ops.encode_ops import encode_blocks_tpu
+            elif engine == "device":
+                from ..ops.encode_ops import encode_blocks_device
 
-                payloads, reads, cmds = encode_blocks_tpu(
+                payloads, reads, cmds = encode_blocks_device(
                     chunk, block_size, hist_bits, parser=parser)
                 for k, p in enumerate(payloads):
                     meta[b0 + k] = (len(p), reads[k], cmds[k])
@@ -227,7 +226,7 @@ def read_container_head(f) -> ContainerInfo:
     )
 
 
-def _decode_bucket_wide_tpu(payloads, info, dict_arr, first_block):
+def _decode_bucket_wide_device(payloads, info, dict_arr, first_block):
     """Decode one bucket of wide payloads on the device; returns the
     bucket's plain bytes in block order."""
     from ..ops.wide_decode import (
@@ -247,7 +246,7 @@ def _decode_bucket_wide_tpu(payloads, info, dict_arr, first_block):
     return out.tobytes()
 
 
-def _decode_bucket_v1_tpu(payloads, info, first_block):
+def _decode_bucket_v1_device(payloads, info, first_block):
     import jax.numpy as jnp
 
     from .blocks import _round_up, decode_v1_staged
@@ -277,7 +276,7 @@ def _decode_bucket_v1_tpu(payloads, info, first_block):
 def decode_container_stream(
     src_path: str,
     dst_path: str | None,
-    engine: str = "tpu",
+    engine: str = "device",
     progress=None,
     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
 ) -> dict:
@@ -295,7 +294,7 @@ def decode_container_stream(
         num_blocks = len(info.comp_sizes)
         bucket_nb = _bucket_blocks(info.block_size, bucket_bytes)
         dict_arr = None
-        if info.wide and engine == "tpu" and info.dictionary:
+        if info.wide and engine == "device" and info.dictionary:
             import jax.numpy as jnp
 
             dict_arr = jnp.asarray(np.frombuffer(info.dictionary, np.uint8))
@@ -309,8 +308,8 @@ def decode_container_stream(
                 nb = min(bucket_nb, num_blocks - b0)
                 payloads = [fin.read(info.comp_sizes[b0 + k]) for k in range(nb)]
                 if info.wide:
-                    if engine == "tpu":
-                        plain = _decode_bucket_wide_tpu(payloads, info, dict_arr, b0)
+                    if engine == "device":
+                        plain = _decode_bucket_wide_device(payloads, info, dict_arr, b0)
                     else:
                         # host path: reuse the in-memory wide host decode
                         # on a bucket-sized synthetic container slice
@@ -326,8 +325,8 @@ def decode_container_stream(
                                 ol, ov, info.block_size,
                                 info.dictionary or None))
                         plain = b"".join(parts)
-                elif engine == "tpu":
-                    plain = _decode_bucket_v1_tpu(payloads, info, b0)
+                elif engine == "device":
+                    plain = _decode_bucket_v1_device(payloads, info, b0)
                 else:
                     plain = native.decode_blocks(
                         payloads, info.hist_bits, info.block_size,

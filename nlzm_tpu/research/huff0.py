@@ -1,4 +1,4 @@
-"""Canonical Huffman research codec (Moffat-Turpin style), host + TPU decode.
+"""Canonical Huffman research codec (Moffat-Turpin style), host + device decode.
 
 Capability parity with the reference's research coders
 (research/moffat-turpin-huff0-rs/src/coder.rs:112-218 and the Go twin):
@@ -12,7 +12,7 @@ Two container schemes:
   with the table built from the *previous* frame's bytes (bootstrap
   uniform), frame sizes doubling 4 KB -> 32 KB. Serial by construction.
 - block container (encode/decode): per-block static tables (256 nibble
-  code lengths = 128 bytes stored per block), which is what lets the TPU
+  code lengths = 128 bytes stored per block), which is what lets the device
   kernel decode many blocks in lockstep - the same SIMD-across-streams
   design as the LZ engine.
 """
@@ -181,7 +181,7 @@ _HDR = struct.Struct(">4sBxHIQ")
 
 
 def encode(data: bytes, block_size: int = 32768) -> bytes:
-    """Per-block static canonical-Huffman container (TPU-decodable)."""
+    """Per-block static canonical-Huffman container (device-decodable)."""
     nblocks = (len(data) + block_size - 1) // block_size if data else 0
     out = bytearray(_HDR.pack(MAGIC, 1, 0, nblocks, len(data)))
     metas = []
@@ -228,8 +228,8 @@ def _parse(data: bytes):
 
 def decode(data: bytes, engine: str = "host") -> bytes:
     block_size, total, sizes, lens, off = _parse(data)
-    if engine == "tpu":
-        return _decode_tpu(data, block_size, total, sizes, lens, off)
+    if engine == "device":
+        return _decode_device(data, block_size, total, sizes, lens, off)
     out = bytearray()
     for b, (ps, lengths) in enumerate(zip(sizes, lens)):
         n = min(block_size, total - b * block_size)
@@ -238,8 +238,8 @@ def decode(data: bytes, engine: str = "host") -> bytes:
     return bytes(out)
 
 
-# ---------------------------------------------------------------- TPU decode
-def _decode_tpu(data, block_size, total, sizes, lens, off):
+# ---------------------------------------------------------------- device decode
+def _decode_device(data, block_size, total, sizes, lens, off):
     """Batched canonical-Huffman decode: B blocks advance one symbol per
     scan step; length resolution is 14 dense compares, symbol lookup is a
     one-hot contraction over the per-block permutation table."""

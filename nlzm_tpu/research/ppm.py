@@ -26,7 +26,7 @@ fresh, compact design rather than a var.I re-implementation:
   capability analog of var.I's RestoreModel/CutOff on suballocator OOM.
 
 Slow host-reference implementation (research-grade, like the reference's
-research tree); the batched TPU formulation follows the LZ engine's
+research tree); the batched device formulation follows the LZ engine's
 SIMD-across-streams pattern and is roadmap (adaptive per-block tries are
 memory-bound on HBM; see README roadmap).
 """

@@ -1,6 +1,6 @@
-"""Batched TPU PPM-class codec: segment-parallel context mixing (NLZC).
+"""Batched device PPM-class codec: segment-parallel context mixing (NLZC).
 
-TPU counterpart of the PPM research codec (research/ppm.py): where the
+device counterpart of the PPM research codec (research/ppm.py): where the
 host codec walks a per-symbol-adaptive order-6 hash trie (inherently
 sequential, like the reference's PPMd var.I,
 /root/reference/research/ppmd-cleaned-cpp/ppmd_model.cpp), this one
@@ -342,7 +342,7 @@ def _decode_blocks(words, seg_lens, prior, steps: int):
     [B, steps, LANES].
 
     Table lookups are f32 one-hot contractions (exact for fences
-    <= 2^14 << 2^24) so row selection rides the MXU; counts stay i32.
+    <= 2^14 << 2^24) at Precision.HIGHEST; counts stay i32.
     """
     from functools import partial
 
@@ -353,9 +353,9 @@ def _decode_blocks(words, seg_lens, prior, steps: int):
     _U32 = jnp.uint32
     f32 = jnp.float32
     # the f32 one-hot contractions carry exact 14-bit table values; the
-    # DEFAULT matmul precision routes f32 operands through bf16 passes
-    # (8 significant bits: fence 993 reads back as 992), silently
-    # corrupting every fence - PX is correctness here, not accuracy
+    # DEFAULT matmul precision may run f32 operands through bf16 or TF32
+    # (8 or 11 significant bits: fence 993 can read back as 992),
+    # silently corrupting fences - PX is correctness here, not accuracy
     PX = jax.lax.Precision.HIGHEST
     B, W = words.shape
     L = LANES

@@ -2,7 +2,7 @@
 
 The host path delegates to zlib (identical polynomial/init/final-xor to the
 reference's slicing-by-16 implementation, NLZM.cpp:126-210). crc32_tables()
-exposes the 16x256 slicing tables for the vectorized TPU kernel in
+exposes the 16x256 slicing tables for the vectorized device kernel in
 nlzm_tpu.ops.crc32_ops.
 """
 

@@ -79,8 +79,8 @@ def memory_report(hist_bits: int, block_size: int = 0, batch_blocks: int = 0) ->
         bank = batch_blocks * 916 * 4
         streams = batch_blocks * (block_size + 64)
         out = batch_blocks * block_size
-        lines.append(f"  TPU model bank:    {kb(bank)}  ({batch_blocks} blocks)")
-        lines.append(f"  TPU streams+out:   {kb(streams + out)}")
+        lines.append(f"  Device model bank: {kb(bank)}  ({batch_blocks} blocks)")
+        lines.append(f"  Device streams:    {kb(streams + out)}")
     return "\n".join(lines)
 
 

@@ -2,8 +2,10 @@
 
 Covers the flag grammar (flags accepted before OR after the command),
 the c/d/t/h commands, refuse-overwrite, and the block-container profiles
-through the serial engine (the TPU path is covered by test_tpu_decode).
+through the serial engine (the device path is covered by test_tpu_decode).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -72,3 +74,59 @@ def test_cli_bad_flag_and_usage(sample):
     assert main(["-bogus:1", "c", str(src), "x"]) == 1
     assert main([]) == 1
     assert main(["c", str(src)]) == 1  # missing output operand
+
+
+def test_cli_auto_decodes_container_on_native_without_gpu(sample, capsys):
+    """`auto` picks the device engine only on a GPU backend; on the CPU
+    a container decodes on the native engine (serial without it)."""
+    from nlzm_tpu import cli, native
+
+    data, src, d = sample
+    dst, out = d / "f.nlzp", d / "f.out"
+    assert main(["-blocks:16384", "c", str(src), str(dst)]) == 0
+    capsys.readouterr()
+    expect = "native" if native.available() else "serial"
+    assert cli._container_engine("auto") == expect
+    assert cli._container_engine("device") == "device"
+    assert main(["d", str(dst), str(out)]) == 0
+    assert "Engine: device" not in capsys.readouterr().out
+    assert out.read_bytes() == data
+
+
+def test_cli_device_engine_says_where_it_runs(sample, capsys):
+    data, src, d = sample
+    dst, out = d / "g.nlzp", d / "g.out"
+    assert main(["-blocks:16384", "c", str(src), str(dst)]) == 0
+    assert main(["-engine:device", "d", str(dst), str(out)]) == 0
+    assert "Engine: device (jax backend cpu)" in capsys.readouterr().out
+    assert out.read_bytes() == data
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    import jax
+
+    from nlzm_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.compile_cache_dir() == str(tmp_path)
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    # JAX reads the variable itself: the helper sets no directory of its own
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_in_checkout(monkeypatch):
+    import jax
+
+    from nlzm_tpu.utils import compile_cache
+
+    repo = Path(compile_cache.__file__).resolve().parents[2]
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    fixed = str(repo / ".build" / "jaxcache")
+    assert compile_cache.compile_cache_dir() == fixed
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert compile_cache.enable_compile_cache() == fixed
+        assert jax.config.jax_compilation_cache_dir == fixed
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -49,7 +49,7 @@ def test_dict_flag_and_payload(dict_container):
 def test_dict_roundtrip_all_engines(drift_corpus, dict_container):
     assert decode_container(dict_container, engine="native") == drift_corpus
     assert decode_container(dict_container, engine="serial") == drift_corpus
-    assert decode_container(dict_container, engine="tpu") == drift_corpus
+    assert decode_container(dict_container, engine="device") == drift_corpus
 
 
 def test_dict_improves_ratio(drift_corpus, dict_container):
@@ -70,7 +70,7 @@ def test_dict_big_block_roundtrip(drift_corpus):
         drift_corpus, block_size=65536, parser="optimal", profile="wide",
         dict_size=65536,
     )
-    assert decode_container(c, engine="tpu") == drift_corpus
+    assert decode_container(c, engine="device") == drift_corpus
     assert decode_container(c, engine="native") == drift_corpus
 
 
@@ -100,7 +100,7 @@ def test_dict_corruption_detected(drift_corpus, dict_container):
     blob = bytearray(dict_container)
     blob[info.payload_off + first_tok_pair] ^= 0xFF
     with pytest.raises((IntegrityError, ValueError)):
-        decode_container(bytes(blob), engine="tpu")
+        decode_container(bytes(blob), engine="device")
 
 
 def test_sample_dict_deterministic(drift_corpus):
@@ -114,7 +114,7 @@ def test_dict_requires_native_optimal(drift_corpus):
     with pytest.raises(ValueError):
         encode_container(
             drift_corpus, block_size=32768, parser="greedy", profile="wide",
-            dict_size=32768, engine="tpu",
+            dict_size=32768, engine="device",
         )
 
 

@@ -32,7 +32,7 @@ def test_block_container_round_trip(corpus_samples, name):
 def test_tpu_decode_matches_host(corpus_text):
     data = corpus_text(40000) + b"\x00\xff"
     c = huff0.encode(data, block_size=8192)
-    assert huff0.decode(c, engine="tpu") == data
+    assert huff0.decode(c, engine="device") == data
 
 
 def test_adaptive_scheme_round_trip(corpus_text):

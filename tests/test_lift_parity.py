@@ -4,7 +4,7 @@ parse_blocks_device silently falls back to ops/encode_ops.py::
 lift_deep_matches when the native library is absent; both claim identical
 semantics (64-iteration lift budget, non-overlap-only lifting, command-
 boundary stop). This pins op_val and depth outputs equal on identical
-inputs - the VERDICT round-2 item 8 guarantee.
+inputs.
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Batched TPU PPM-class codec (segment-parallel, v3 container prior) round trips."""
+"""Batched device PPM-class codec (segment-parallel, v3 container prior) round trips."""
 
 import pytest
 

@@ -78,14 +78,14 @@ def test_wide_stream_multibucket_roundtrip(corpus_text, paths):
 
 def test_stream_decode_of_memory_archive(corpus_text, paths):
     """The streaming decoder consumes archives written by the in-memory
-    encoder (same wire), v1 and wide, tpu and native engines."""
+    encoder (same wire), v1 and wide, device and native engines."""
     if not native.available():
         pytest.skip("native lib not built")
     src, dst, rt = paths
     data = corpus_text(120_000)
     for kwargs, engines in (
-        (dict(profile="wide", dict_size=8192), ("tpu", "native")),
-        (dict(), ("tpu", "native")),
+        (dict(profile="wide", dict_size=8192), ("device", "native")),
+        (dict(), ("device", "native")),
     ):
         blob = encode_container(
             data, block_size=16384, parser="optimal", **kwargs)

@@ -1,4 +1,4 @@
-"""Batched TPU encoder vs the other engines."""
+"""Batched device encoder vs the other engines."""
 
 import pytest
 
@@ -9,31 +9,31 @@ from nlzm_tpu.parallel.blocks import decode_container, encode_container
 @pytest.mark.parametrize("name", ["text", "repetitive", "random", "zeros"])
 def test_tpu_encode_cross_decodes(corpus_samples, name):
     data = corpus_samples[name]
-    c = encode_container(data, block_size=4096, parser="greedy", engine="tpu")
+    c = encode_container(data, block_size=4096, parser="greedy", engine="device")
     assert decode_container(c, engine="serial") == data
-    assert decode_container(c, engine="tpu") == data
+    assert decode_container(c, engine="device") == data
 
 
 def test_tpu_encode_native_decode(corpus_text):
     if not native.available():
         pytest.skip("native lib not built")
     data = corpus_text(60000) + b"#"
-    c = encode_container(data, block_size=8192, parser="greedy", engine="tpu")
+    c = encode_container(data, block_size=8192, parser="greedy", engine="device")
     assert decode_container(c, engine="native") == data
 
 
 @pytest.mark.parametrize("name", ["text", "repetitive", "random"])
 def test_tpu_optimal_parse_cross_decodes(corpus_samples, name):
     data = corpus_samples[name]
-    c = encode_container(data, block_size=4096, parser="optimal", engine="tpu")
+    c = encode_container(data, block_size=4096, parser="optimal", engine="device")
     assert decode_container(c, engine="serial") == data
-    assert decode_container(c, engine="tpu") == data
+    assert decode_container(c, engine="device") == data
 
 
 def test_tpu_optimal_parse_beats_greedy(corpus_text):
     data = corpus_text(49152)
-    greedy = encode_container(data, block_size=8192, parser="greedy", engine="tpu")
-    opt = encode_container(data, block_size=8192, parser="optimal", engine="tpu")
+    greedy = encode_container(data, block_size=8192, parser="greedy", engine="device")
+    opt = encode_container(data, block_size=8192, parser="optimal", engine="device")
     assert decode_container(opt, engine="serial") == data
     assert len(opt) < len(greedy)
 
@@ -48,9 +48,9 @@ def test_tpu_encode_rep_commands():
 
     recs = [b"%08d,SENSOR_%02d,%06d,OK;" % (i, i % 16, (i * 2654435761) % 999983) for i in range(2000)]
     data = b"".join(recs)[:48000]
-    c = encode_container(data, block_size=8192, engine="tpu")
+    c = encode_container(data, block_size=8192, engine="device")
     assert decode_container(c, engine="serial") == data
-    assert decode_container(c, engine="tpu") == data
+    assert decode_container(c, engine="device") == data
 
     # rep conversion happens and is wire-cheaper on this corpus
     import numpy as np
@@ -79,15 +79,15 @@ def test_tpu_encode_rep_commands():
 
 
 def test_tpu_encode_empty():
-    assert decode_container(encode_container(b"", engine="tpu"), engine="serial") == b""
+    assert decode_container(encode_container(b"", engine="device"), engine="serial") == b""
 
 
 def test_tpu_encode_single_frame_cap():
-    # blocks must fit one frame in the TPU profile
-    from nlzm_tpu.ops.encode_ops import encode_blocks_tpu
+    # blocks must fit one frame in the device profile
+    from nlzm_tpu.ops.encode_ops import encode_blocks_device
 
     with pytest.raises(ValueError):
-        encode_blocks_tpu(b"x" * 100000, 65536, 14)
+        encode_blocks_device(b"x" * 100000, 65536, 14)
 
 
 def test_device_parse_big_blocks():
@@ -100,7 +100,7 @@ def test_device_parse_big_blocks():
         pytest.skip("native lib not built")
     data = build_nonperiodic(262144)
     dev = encode_container(
-        data, block_size=131072, parser="optimal", profile="wide", engine="tpu"
+        data, block_size=131072, parser="optimal", profile="wide", engine="device"
     )
     assert decode_container(dev, engine="native") == data
     nat = encode_container(
@@ -110,7 +110,7 @@ def test_device_parse_big_blocks():
 
 
 def test_wide_engine_tpu_uses_device_emitter():
-    """engine="tpu" wide encode is fully device-resident: device parse
+    """engine="device" wide encode is fully device-resident: device parse
     feeds the device plane encoder, whose payloads are byte-identical to
     the host encoder run on the same parsed ops."""
     from nlzm_tpu import native
@@ -123,7 +123,7 @@ def test_wide_engine_tpu_uses_device_emitter():
         pytest.skip("native lib not built")
     data = build_nonperiodic(100_000)
     c = encode_container(
-        data, block_size=32768, parser="optimal", profile="wide", engine="tpu"
+        data, block_size=32768, parser="optimal", profile="wide", engine="device"
     )
     assert decode_container(c, engine="serial") == data
     op_len, op_val, op_rep, _ = parse_blocks_device(data, 32768, 15, "optimal")
