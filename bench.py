@@ -375,39 +375,26 @@ def main() -> None:
     # 64 KiB-dict/cap-8 frontier; dict and cap contribute ~3.5% and
     # ~2.2%). Costs one extra doubling round (cap 12 -> 4 rounds) on the
     # 2-operand sort path. Ratio anchor: oracle-w20 = 0.3687 on the
-    # non-periodic corpus (tests/test_ratio_guard.py). Encode/staging
-    # failures are logged and skipped; a decode MISMATCH (AssertionError
-    # in verify_buckets) propagates - that is a correctness regression.
+    # non-periodic corpus (tests/test_ratio_guard.py). Any failure here,
+    # compile or memory included, fails the bench.
     if not over_budget("frontier config", 180):
-        try:
-            fcont = encode_container(
-                data, block_size=131072, parser="optimal", profile="wide",
-                dict_size=131072, depth_cap=12,
-            )
-            finfo = parse_container(fcont)
-            fbuckets, _fdict = stage_all(fcont, finfo)
-        except Exception as e:  # pragma: no cover - diagnostics only
-            print(f"bench: frontier staging failed: {e!r}", file=sys.stderr,
-                  flush=True)
-        else:
-            # the frontier RATIO is host-measured and always safe to emit
-            emit("wide_frontier_ratio", len(fcont) / n, "ratio",
-                 (len(fcont) / n) / (len(container) / n), block_kib=128,
-                 dict_kib=128, depth_cap=12,
-                 headline_ratio=round(len(container) / n, 4))
-            try:
-                verify_buckets(finfo, fbuckets, "frontier")
-                f_best = best_of(make_run(finfo, fbuckets))
-                emit("device_wide_frontier_decode_throughput",
-                     n / f_best / 1e6, "MB/s",
-                     (n / f_best / 1e6) / 123.0, block_kib=128,
-                     dict_kib=128, depth_cap=12,
-                     ratio=round(len(fcont) / n, 4))
-            except AssertionError:
-                raise  # decode mismatch = correctness regression
-            except Exception as e:  # pragma: no cover - diagnostics
-                print(f"bench: frontier run failed: {e!r}",
-                      file=sys.stderr, flush=True)
+        fcont = encode_container(
+            data, block_size=131072, parser="optimal", profile="wide",
+            dict_size=131072, depth_cap=12,
+        )
+        finfo = parse_container(fcont)
+        fbuckets, _fdict = stage_all(fcont, finfo)
+        emit("wide_frontier_ratio", len(fcont) / n, "ratio",
+             (len(fcont) / n) / (len(container) / n), block_kib=128,
+             dict_kib=128, depth_cap=12,
+             headline_ratio=round(len(container) / n, 4))
+        verify_buckets(finfo, fbuckets, "frontier")
+        f_best = best_of(make_run(finfo, fbuckets))
+        emit("device_wide_frontier_decode_throughput",
+             n / f_best / 1e6, "MB/s",
+             (n / f_best / 1e6) / 123.0, block_kib=128,
+             dict_kib=128, depth_cap=12,
+             ratio=round(len(fcont) / n, 4))
         emit_primary()
 
     # ---- primary metric re-emitted as the guaranteed last line ----

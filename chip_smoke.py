@@ -44,6 +44,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 MIB = 1 << 20
+SEED = 0x5EED
 SIZES = {"wide": 64 * MIB, "v1": 16 * MIB, "frontier": 16 * MIB,
          "encode": 16 * MIB, "research": 4 * MIB}
 
@@ -362,8 +363,8 @@ def run(args) -> dict:
     _setup_jax()
     dev = phase_device()
     t = time.perf_counter()
-    data = corpus(SIZES["wide"], args.seed)
-    say(f"corpus: {len(data)} B seeded non-periodic text (seed {args.seed:#x}) "
+    data = corpus(SIZES["wide"], SEED)
+    say(f"corpus: {len(data)} B seeded non-periodic text (seed {SEED:#x}) "
         f"in {time.perf_counter() - t:.3f}s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         workdir = Path(tmp)
@@ -382,8 +383,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--four-cards", action="store_true",
                     help="run only the sharded decodes, over four cards")
-    ap.add_argument("--seed", type=lambda s: int(s, 0), default=0x5EED,
-                    help="corpus seed (default 0x5EED)")
     args = ap.parse_args(argv)
     try:
         dev = run(args)

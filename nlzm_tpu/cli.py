@@ -16,8 +16,10 @@ Flags:
     -profile:name   block profile: v1 (NLZM-compatible frames, default)
                     | wide (lane-parallel device-first planes)
     -engine:name    engine: auto | serial | native | device
-                    (auto decodes containers on the device engine only
-                    when JAX's backend is a GPU, else on native)
+                    (auto decodes containers on the device engine when
+                    JAX's backend is a GPU; elsewhere v1 containers on
+                    native, wide ones on the device engine, which
+                    prints its backend)
     -dict:size      wide profile: shared-dictionary bytes sampled from the
                     input (0 = off)
     -v              verbose: memory budget + per-stage timing report
@@ -53,18 +55,21 @@ def _use_device() -> None:
     print(f"Engine: device (jax backend {jax.default_backend()})")
 
 
-def _container_engine(engine: str) -> str:
-    """Resolve `auto` for NLZP containers: the device engine only on a
-    GPU backend; otherwise native (serial when the library is absent)."""
+def _container_engine(engine: str, wide: bool) -> str:
+    """Resolve `auto` for NLZP containers. Off a GPU backend, v1
+    containers go to the threaded native decoder. Wide containers have no
+    native plane decoder (the host one is the Python reference), so they,
+    and every container when the library is absent, stay on the device
+    engine, which says which backend it runs on."""
     if engine != "auto":
         return engine
     import jax
 
-    if jax.default_backend() == "gpu":
-        return "device"
     from . import native
 
-    return "native" if native.available() else "serial"
+    if jax.default_backend() != "gpu" and not wide and native.available():
+        return "native"
+    return "device"
 
 
 def main(argv=None) -> int:
@@ -105,6 +110,10 @@ def main(argv=None) -> int:
             dict_size = int(arg[5:])
         else:
             return _fail(f"unrecognized flag {arg}")
+    from .parallel.blocks import ENGINES
+
+    if engine not in ENGINES:
+        return _fail(f"unknown engine {engine} (expected {' | '.join(ENGINES)})")
 
     # flag-order-independent profile/block validation
     if profile == "wide":
@@ -213,15 +222,18 @@ def main(argv=None) -> int:
         if dst and os.path.exists(dst):
             return _fail(f"{dst} already exists")
         from . import native
-        from .parallel.blocks import MAGIC
+        from .parallel.blocks import _HDR, FLAG_WIDE, MAGIC
         from .utils.metrics import ProgressLine
 
         with open(src, "rb") as f:
-            magic = f.read(4)
+            head = f.read(_HDR.size)
+        magic = head[:4]
         flen = os.stat(src).st_size
         t0 = time.time()
-        if magic[:4] == MAGIC:
-            engine = _container_engine(engine)
+        if magic == MAGIC:
+            # header byte 7 holds the container flags (blocks._HDR)
+            wide = len(head) > 7 and bool(head[7] & FLAG_WIDE)
+            engine = _container_engine(engine, wide)
         if engine == "device":
             _use_device()
         if (
@@ -260,7 +272,8 @@ def _decode_any(data: bytes, engine: str) -> bytes:
     from .parallel.blocks import MAGIC, decode_container
 
     if data[:4] == MAGIC:
-        return decode_container(data, engine=_container_engine(engine))
+        # main() has resolved `auto` for containers already
+        return decode_container(data, engine=engine)
     from . import native
     from .codec import decode_bytes
 

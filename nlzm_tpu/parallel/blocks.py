@@ -51,6 +51,17 @@ DEFAULT_BLOCK_SIZE = 1 << 17  # 128 KB: 5 frames/block at hist_bits 17
 WIDE_MAX_BLOCK = 131072  # 2-op sort path above 32 KiB; i32 position budget
 DEFAULT_DICT_SIZE = 32768  # keeps 32 KiB blocks on the packed-sort path (D+N <= 64K)
 
+ENGINES = ("auto", "serial", "native", "device")
+DECODE_ENGINES = ("serial", "native", "device")
+
+
+def check_engine(engine: str, allowed=ENGINES) -> None:
+    """Refuse an engine name outside `allowed` instead of guessing one."""
+    if engine not in allowed:
+        raise ValueError(
+            f"unknown engine {engine!r}; expected one of {', '.join(allowed)}"
+        )
+
 
 def sample_dict(data: bytes, dict_size: int, segment: int = 2048) -> bytes:
     """Deterministic shared-dictionary sampling: evenly spaced segments.
@@ -151,6 +162,7 @@ def encode_container(
     Keep dict_size + block_size <= 65536 to stay on the decoder's
     packed-sort path. Requires the native engine and parser="optimal".
     """
+    check_engine(engine)
     dictionary = b""
     if dict_size and profile == "wide":
         dictionary = sample_dict(data, dict_size)
@@ -423,6 +435,7 @@ def decode_container(data: bytes, engine: str = "device") -> bytes:
     jax backend is active). engine="native": threaded C++ host runtime.
     engine="serial": per-block Python reference path.
     """
+    check_engine(engine, DECODE_ENGINES)
     info = parse_container(data)
     if not info.comp_sizes:
         return _verified(b"", info)

@@ -31,7 +31,7 @@ from ..utils.crc32 import crc32
 from .blocks import (
     _BLK, _HDR, FLAG_CRC32, FLAG_DICT, FLAG_PRIORS, FLAG_WIDE, MAGIC,
     VERSION, WIDE_MAX_BLOCK, ContainerInfo, IntegrityError, _compress_dict,
-    hist_bits_for_block,
+    check_engine, hist_bits_for_block,
 )
 
 DEFAULT_BUCKET_BYTES = 16 << 20
@@ -75,6 +75,7 @@ def encode_container_stream(
     """
     from .. import native
 
+    check_engine(engine)
     flen = os.stat(src_path).st_size
     num_blocks = (flen + block_size - 1) // block_size if flen else 0
 
@@ -284,10 +285,11 @@ def decode_container_stream(
 
     dst_path None = test mode (decode + CRC only, like the reference's
     `t`). CRC is accumulated incrementally and verified against the
-    stored value. Returns {"in", "out", "crc32"}.
+    stored value. Returns {"in", "out", "crc32"}. engine: device | native.
     """
     from .. import native
 
+    check_engine(engine, ("native", "device"))
     flen = os.stat(src_path).st_size
     with open(src_path, "rb") as fin:
         info = read_container_head(fin)

@@ -227,6 +227,9 @@ def _parse(data: bytes):
 
 
 def decode(data: bytes, engine: str = "host") -> bytes:
+    """engine: host (per-block Python) | device (batched JAX decode)."""
+    if engine not in ("host", "device"):
+        raise ValueError(f"unknown engine {engine!r}; expected host or device")
     block_size, total, sizes, lens, off = _parse(data)
     if engine == "device":
         return _decode_device(data, block_size, total, sizes, lens, off)

@@ -28,6 +28,17 @@ ORACLE_SRC = Path("/root/reference/NLZM.cpp")
 ORACLE_BIN = REPO / ".build" / "nlzm_oracle"
 
 
+@pytest.fixture(autouse=True)
+def _compile_cache_off_checkout(monkeypatch, tmp_path_factory):
+    """Set after jax's import, the variable makes the compile-cache helper
+    leave JAX's configuration alone, so the entry points under test (CLI
+    device engine, chip_smoke) write no CPU cache entries into the
+    checkout's .build/jaxcache."""
+    monkeypatch.setenv(
+        "JAX_COMPILATION_CACHE_DIR", str(tmp_path_factory.getbasetemp() / "jaxcache")
+    )
+
+
 def _ensure_oracle() -> Path:
     if ORACLE_BIN.exists():
         return ORACLE_BIN

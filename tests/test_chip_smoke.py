@@ -14,7 +14,7 @@ from nlzm_tpu.utils.corpus import build_nonperiodic
 
 @pytest.fixture(scope="module")
 def data():
-    return build_nonperiodic(160_000, seed=0x5EED)
+    return build_nonperiodic(160_000, seed=chip_smoke.SEED)
 
 
 @pytest.fixture(autouse=True)

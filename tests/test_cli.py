@@ -77,19 +77,37 @@ def test_cli_bad_flag_and_usage(sample):
 
 
 def test_cli_auto_decodes_container_on_native_without_gpu(sample, capsys):
-    """`auto` picks the device engine only on a GPU backend; on the CPU
-    a container decodes on the native engine (serial without it)."""
+    """`auto` picks the device engine on a GPU backend; on the CPU a v1
+    container decodes on the native engine (device without the library,
+    which then says so)."""
     from nlzm_tpu import cli, native
 
     data, src, d = sample
     dst, out = d / "f.nlzp", d / "f.out"
     assert main(["-blocks:16384", "c", str(src), str(dst)]) == 0
     capsys.readouterr()
-    expect = "native" if native.available() else "serial"
-    assert cli._container_engine("auto") == expect
-    assert cli._container_engine("device") == "device"
+    expect = "native" if native.available() else "device"
+    assert cli._container_engine("auto", wide=False) == expect
+    assert cli._container_engine("device", wide=False) == "device"
+    assert cli._container_engine("serial", wide=True) == "serial"
     assert main(["d", str(dst), str(out)]) == 0
-    assert "Engine: device" not in capsys.readouterr().out
+    said = "Engine: device (jax backend cpu)" in capsys.readouterr().out
+    assert said == (expect == "device")
+    assert out.read_bytes() == data
+
+
+def test_cli_auto_keeps_wide_container_on_device_engine(sample, capsys):
+    """Wide containers have no native plane decoder: on the CPU `auto`
+    keeps them on the device engine's streaming path and says so."""
+    from nlzm_tpu import cli
+
+    data, src, d = sample
+    dst, out = d / "w.nlzp", d / "w.out"
+    assert main(["-profile:wide", "-blocks:16384", "c", str(src), str(dst)]) == 0
+    capsys.readouterr()
+    assert cli._container_engine("auto", wide=True) == "device"
+    assert main(["d", str(dst), str(out)]) == 0
+    assert "Engine: device (jax backend cpu)" in capsys.readouterr().out
     assert out.read_bytes() == data
 
 
@@ -100,6 +118,42 @@ def test_cli_device_engine_says_where_it_runs(sample, capsys):
     assert main(["-engine:device", "d", str(dst), str(out)]) == 0
     assert "Engine: device (jax backend cpu)" in capsys.readouterr().out
     assert out.read_bytes() == data
+
+
+def test_cli_rejects_unknown_engine(sample, capsys):
+    """The old engine name and typos fail instead of picking an engine."""
+    _, src, d = sample
+    dst, out = d / "h.nlzp", d / "h.out"
+    assert main(["-blocks:16384", "c", str(src), str(dst)]) == 0
+    capsys.readouterr()
+    assert main(["-engine:tpu", "d", str(dst), str(out)]) == 1
+    assert "unknown engine tpu" in capsys.readouterr().out
+    assert not out.exists()
+    assert main(["-engine:devise", "c", str(src), str(d / "i.nlzp")]) == 1
+    assert not (d / "i.nlzp").exists()
+
+
+@pytest.mark.parametrize("call", ["decode_container", "decode_container_stream",
+                                  "encode_container", "huff0_decode"])
+def test_api_rejects_unknown_engine(sample, call):
+    from nlzm_tpu.parallel.blocks import decode_container, encode_container
+    from nlzm_tpu.parallel.stream import decode_container_stream
+    from nlzm_tpu.research import huff0
+
+    data, src, d = sample
+    c = encode_container(data, block_size=16384)
+    arc = d / "j.nlzp"
+    arc.write_bytes(c)
+    run = {
+        "decode_container": lambda: decode_container(c, engine="tpu"),
+        "decode_container_stream": lambda: decode_container_stream(
+            str(arc), str(d / "j.out"), engine="tpu"),
+        "encode_container": lambda: encode_container(data, engine="tpu"),
+        "huff0_decode": lambda: huff0.decode(huff0.encode(data), engine="tpu"),
+    }[call]
+    with pytest.raises(ValueError, match="unknown engine 'tpu'"):
+        run()
+    assert not (d / "j.out").exists()
 
 
 def test_compile_cache_honours_env(monkeypatch, tmp_path):
